@@ -6,8 +6,8 @@ Equivalents of the reference ``apps/bfm`` package: ``AlignShapes.scala``
 
 The BFM-2017 model and scan assets are license-gated downloads and absent
 from the reference repo (SURVEY §7 hard part 7, reference README.md:57-72).
-All pipelines here run on real assets when present under
-``ICP_TPU_BFM_DATA``; otherwise a synthetic stand-in face (open-patch mesh +
+All pipelines here run on real assets from a directory passed to
+``load_bfm_data``; otherwise a synthetic stand-in face (open-patch mesh +
 FaceKernel-built GPMM) exercises the identical code path.
 """
 from __future__ import annotations
@@ -20,8 +20,6 @@ import numpy as np
 
 from icp_proposal_tpu.mesh import TriangleMesh, boundary_vertex_mask, make_mesh
 from icp_proposal_tpu.models.gpmm import Gpmm
-
-BFM_DATA_DIR = os.environ.get("ICP_TPU_BFM_DATA", "/root/reference/data/bfm")
 
 
 # ---------------------------------------------------------------------------
@@ -132,7 +130,7 @@ def prepare_bfm_dataset(
     return count
 
 
-def load_bfm_data(data_dir: str = None, target_index: int = 0,
+def load_bfm_data(data_dir: str, target_index: int = 0,
                   model_file: str = "faceGPmodel_200c.h5") -> "BfmData":
     """Load real BFM assets when present (reference ``bfm/LoadTestData``:
     face GPMM + aligned and partial target meshes by index).  Raises
@@ -141,7 +139,6 @@ def load_bfm_data(data_dir: str = None, target_index: int = 0,
     from icp_proposal_tpu.io.statismo import read_statismo_gpmm
     from icp_proposal_tpu.io.stl import read_stl
 
-    data_dir = data_dir or BFM_DATA_DIR
     model_path = os.path.join(data_dir, model_file)
     aligned_dir = os.path.join(data_dir, "aligned", "meshes")
     partial_dir = os.path.join(data_dir, "partial", "meshes")

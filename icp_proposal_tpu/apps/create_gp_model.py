@@ -6,7 +6,7 @@ kernel) and ``apps/bfm/CreateGPModel.scala`` (face: FaceKernel + Nyström on a
 decimated reference).
 
     python -m icp_proposal_tpu.apps.create_gp_model femur \
-        --reference /root/reference/data/femur/femur_reference.stl \
+        --reference femur_reference.stl \
         --components 50 100 200 --out-dir ./models
     python -m icp_proposal_tpu.apps.create_gp_model face \
         --reference ref.stl --components 200 --out models/faceGPmodel_200c.h5

@@ -14,13 +14,20 @@ from typing import Dict
 import numpy as np
 
 from icp_proposal_tpu.io.landmarks import common_landmarks, read_landmarks
-from icp_proposal_tpu.io.statismo import read_statismo_gpmm
 from icp_proposal_tpu.io.stl import read_stl
 from icp_proposal_tpu.mesh import TriangleMesh, boundary_vertex_mask, make_mesh
 from icp_proposal_tpu.models.gpmm import Gpmm
 from icp_proposal_tpu.ops.rigid import rigid_landmark_alignment
 
-FEMUR_DATA_DIR = os.environ.get("ICP_TPU_FEMUR_DATA", "/root/reference/data/femur")
+# Femur surface of the reference's topology (1,622 vertices, 3,240 faces):
+# the posterior-mean shape of a femur GPMM fit to the reference's target,
+# written by this repository's posterior analysis (``analysis/``).
+FEMUR_MESH = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+    "data", "femur_mesh.stl",
+)
+# Fixed landmark vertices of FEMUR_MESH: the extreme vertices along x, y, z.
+FEMUR_LANDMARK_IDS = (370, 1193, 385, 590, 684, 1350)
 
 
 @dataclass
@@ -33,28 +40,17 @@ class FemurData:
     model_boundary_mask: np.ndarray = field(default=None)
 
 
-def load_femur_data(model_components: int = 50, data_dir: str | None = None) -> FemurData:
-    """Load the femur GPMM + synthetic target, rigidly aligning the target to
-    the model frame via the shared landmarks (reference
-    ``LoadTestData.scala:32-50``: transform computed target→model landmarks
-    with rotation center at the origin)."""
-    data_dir = data_dir or FEMUR_DATA_DIR
-    model = read_statismo_gpmm(
-        os.path.join(data_dir, f"femur_gp_model_{model_components}-components.h5")
-    )
-    model_lms = read_landmarks(os.path.join(data_dir, "femur_reference.json"))
-    points, cells = read_stl(os.path.join(data_dir, "femur_target.stl"))
-    target_lms = read_landmarks(os.path.join(data_dir, "femur_target.json"))
-
+def _aligned_femur_data(model: Gpmm, model_lms, points, cells, target_lms):
+    """Rigidly align the target to the model frame via the shared landmarks
+    (reference ``LoadTestData.scala:32-50``: transform computed target→model
+    landmarks with rotation center at the origin)."""
     src, dst, names = common_landmarks(target_lms, model_lms)
     transform = rigid_landmark_alignment(src, dst, center=np.zeros(3))
     aligned_points = np.asarray(transform.apply(points.astype(np.float32)))
     aligned_lms = {n: np.asarray(transform.apply(target_lms[n][None, :]))[0] for n in target_lms}
-
-    target = make_mesh(aligned_points, cells)
     return FemurData(
         model=model,
-        target=target,
+        target=make_mesh(aligned_points, cells),
         model_landmarks=model_lms,
         target_landmarks=aligned_lms,
         target_boundary_mask=boundary_vertex_mask(cells, len(points)),
@@ -64,14 +60,74 @@ def load_femur_data(model_components: int = 50, data_dir: str | None = None) -> 
     )
 
 
+def make_femur_data(model_components: int = 50, seed: int = 1024) -> FemurData:
+    """The seeded femur workload, built from ``FEMUR_MESH`` alone.
+
+    Model: the reference's femur kernel + Nyström GPMM
+    (``build_femur_gpmm``; ``model_components + 1`` basis columns).  Target:
+    a model instance with coefficients ~ N(0, I), turned by 2–5° about a
+    random axis through its centroid and shifted by 10–40 mm per axis.
+    Landmarks: ``FEMUR_LANDMARK_IDS`` on the reference and the same vertices
+    on the target, so the load-time landmark alignment runs as for real data.
+    """
+    from icp_proposal_tpu.models.build_femur import build_femur_gpmm
+
+    ref_points, cells = read_stl(FEMUR_MESH)
+    model = build_femur_gpmm(ref_points, cells, model_components, seed)
+    rng = np.random.default_rng(seed)
+    coeffs = rng.standard_normal(model.rank)
+    shape = (
+        np.asarray(model.ref_points, np.float64)
+        + np.asarray(model.mean_disp, np.float64)
+        + np.asarray(model.sbasis, np.float64) @ coeffs
+    )
+    axis = rng.standard_normal(3)
+    axis /= np.linalg.norm(axis)
+    angle = np.deg2rad(rng.uniform(2.0, 5.0))
+    k = np.array([[0, -axis[2], axis[1]], [axis[2], 0, -axis[0]],
+                  [-axis[1], axis[0], 0]])
+    rot = np.eye(3) + np.sin(angle) * k + (1.0 - np.cos(angle)) * (k @ k)
+    shift = rng.uniform(10.0, 40.0, 3) * rng.choice([-1.0, 1.0], 3)
+    centroid = shape.mean(axis=0)
+    target_points = (shape - centroid) @ rot.T + centroid + shift
+    names = [f"L{i}" for i in range(len(FEMUR_LANDMARK_IDS))]
+    ids = np.asarray(FEMUR_LANDMARK_IDS)
+    model_lms = dict(zip(names, np.asarray(ref_points, np.float64)[ids]))
+    target_lms = dict(zip(names, target_points[ids]))
+    return _aligned_femur_data(
+        model, model_lms, target_points.astype(np.float32), cells, target_lms
+    )
+
+
+def load_femur_data(model_components: int = 50, data_dir: str | None = None,
+                    seed: int = 1024) -> FemurData:
+    """The femur workload: the seeded one (``make_femur_data``) by default,
+    or the reference's statismo model, target mesh and landmark files from
+    ``data_dir`` (reading them needs ``h5py``)."""
+    if data_dir is None:
+        return make_femur_data(model_components, seed)
+    from icp_proposal_tpu.io.statismo import read_statismo_gpmm
+
+    model = read_statismo_gpmm(
+        os.path.join(data_dir, f"femur_gp_model_{model_components}-components.h5")
+    )
+    model_lms = read_landmarks(os.path.join(data_dir, "femur_reference.json"))
+    points, cells = read_stl(os.path.join(data_dir, "femur_target.stl"))
+    target_lms = read_landmarks(os.path.join(data_dir, "femur_target.json"))
+    return _aligned_femur_data(model, model_lms, points, cells, target_lms)
+
+
 # ---------------------------------------------------------------------------
 # flagship configurations (reference ``IcpProposalRegistration.scala:50-104``)
 # ---------------------------------------------------------------------------
 
-def make_icp_proposal_setup(data: FemurData, parity: bool = False):
+def make_icp_proposal_setup(data: FemurData, parity: bool = False,
+                            build_index: bool = True):
     """The flagship MH configuration: 0.9·ICP-mixture (model+target dirs) +
     0.1·random-shape; Euclidean evaluator σ=2, ModelToTarget; evaluator
-    points = 4·rank, ICP points = 2·rank (reference :59-87)."""
+    points = 4·rank, ICP points = 2·rank (reference :59-87).
+    build_index=False queries the target densely (exact everywhere, as the
+    reference's BVH; the cross-implementation parity run needs it)."""
     import jax.numpy as jnp
 
     from icp_proposal_tpu.sampling.context import build_target_context
@@ -84,7 +140,8 @@ def make_icp_proposal_setup(data: FemurData, parity: bool = False):
     )
 
     model = data.model
-    ctx = build_target_context(data.target, data.target_boundary_mask)
+    ctx = build_target_context(data.target, data.target_boundary_mask,
+                               build_index=build_index)
     n_icp = 2 * model.rank
     n_eval = 4 * model.rank
     evaluator = proximity_and_independent(
@@ -133,7 +190,7 @@ def make_hybrid_setup(data: FemurData, icp_weight=0.5, mala_weight=0.4,
     at the from-state (docs/MIXING.md §3); the gradient-informed MALA
     component restores informed moves with a cheap exact reverse density,
     and the hybrid has the best exact-mode ESS/step of every configuration
-    swept (artifacts/mixing_sweep.json).  Use ``make_icp_proposal_setup``
+    swept (docs/MIXING.md §4).  Use ``make_icp_proposal_setup``
     (optionally ``parity=True``) for reference-faithful comparison or
     MAP-style fitting; use this for posterior inference."""
     from icp_proposal_tpu.sampling.context import build_target_context
@@ -255,9 +312,10 @@ SETUPS = {
     "mala": make_mala_setup,
 }
 
-# The recommended default, chosen as the argmax of ess_per_wall_second in
-# artifacts/quality_femur.json (VERDICT r4 items 4/6: the recommendation and
-# the CLI default must be the configuration that measurably wins).
+# The recommended default: the argmax of ess_per_wall_second in an earlier
+# round's quality run (tools/quality_run.py).  That record was measured on
+# the machine the system was first built for and was removed; re-measuring
+# on the GPU is owed (ROADMAP), and the decision follows that measurement.
 RECOMMENDED_SETUP = "rw"
 
 
@@ -283,9 +341,8 @@ def run_icp_proposal_registration(
     densities; "parity" = the reference recipe with its own (biased)
     transition density; "hybrid" = exact-mode ICP+MALA+RW; "rw"/"rw-adapt"/
     "mala" = the cheap fast-mixing samplers.  Default = ``recommended_setup()``
-    — the argmax of ess_per_wall_second in artifacts/quality_femur.json
-    (VERDICT r4 item 6: the default must be the configuration the evidence
-    recommends; the reference's ICP recipe stays one flag away).
+    (see RECOMMENDED_SETUP; the reference's ICP recipe stays one flag
+    away).
     resume_log: restart from a previous run's JSON chain log (mode "best" =
     MAP record, "last" = continue the chain)."""
     import jax
@@ -371,17 +428,21 @@ if __name__ == "__main__":
     p.add_argument("--resume-log", type=str, default=None,
                    help="restart from a previous run's JSON chain log")
     p.add_argument("--resume-mode", choices=["best", "last"], default="best")
+    p.add_argument("--cpu", action="store_true",
+                   help="run on the CPU; without it a GPU is required")
     p.add_argument("--setup", choices=sorted(SETUPS), default=None,
                    help="flagship = reference recipe, exact densities; "
                         "parity = reference recipe + reference density; "
                         "hybrid = exact-mode ICP+MALA+RW; rw/rw-adapt/mala "
                         "= fast-mixing exact samplers.  Default: "
                         f"{RECOMMENDED_SETUP!r} — best measured "
-                        "ess_per_wall_second AND best MAP in "
-                        "artifacts/quality_femur.json (the reference's ICP "
-                        "recipe freezes after ~10k steps under the exact "
-                        "density — docs/MIXING.md)")
+                        "ess_per_wall_second in an earlier quality run (the "
+                        "reference's ICP recipe freezes after ~10k steps "
+                        "under the exact density — docs/MIXING.md)")
     args = p.parse_args()
+    from icp_proposal_tpu.utils.profiling import require_platform
+
+    require_platform("cpu" if args.cpu else "gpu")
     if args.mode == "proposal":
         run_icp_proposal_registration(
             num_samples=args.samples,

@@ -1,10 +1,10 @@
 """ctypes loader for the host-side C++ geometry kernels (point_tri.cpp).
 
-Compiles the shared library on first use (g++ -O3 -fopenmp, cached next to
-the source, keyed on source mtime) and exposes numpy-level entry points.
-Everything degrades gracefully: if no C++ toolchain is available or
-``ICP_TPU_NO_NATIVE=1`` is set, callers fall back to the numpy
-implementations (``ops/surface_index._np_point_tri_dist2``).
+Compiles the shared library on first use (g++ -O3 -march=native -fopenmp,
+next to the source, rebuilt when the source is newer; the library is not
+tracked by git, so each machine builds its own) and exposes numpy-level
+entry points.  If no C++ toolchain is available, callers fall back to the
+numpy implementations (``ops/surface_index._np_point_tri_dist2``).
 """
 from __future__ import annotations
 
@@ -26,9 +26,12 @@ _load_failed = False
 
 
 def _compile() -> bool:
+    # build under a per-process name, then rename: concurrent first uses
+    # (test workers) never load a half-written library
+    tmp = f"{_LIB}.{os.getpid()}.tmp"
     cmd = [
         "g++", "-O3", "-march=native", "-fPIC", "-shared", "-fopenmp",
-        _SRC, "-o", _LIB,
+        _SRC, "-o", tmp,
     ]
     try:
         res = subprocess.run(cmd, capture_output=True, text=True, timeout=120)
@@ -42,6 +45,7 @@ def _compile() -> bool:
         if res.returncode != 0:
             print(f"[icp-native] compile failed:\n{res.stderr}", file=sys.stderr)
             return False
+    os.replace(tmp, _LIB)
     return True
 
 
@@ -50,7 +54,7 @@ def load():
     global _lib, _load_failed
     if _lib is not None:
         return _lib
-    if _load_failed or os.environ.get("ICP_TPU_NO_NATIVE") == "1":
+    if _load_failed:
         return None
     with _lock:
         if _lib is not None or _load_failed:

@@ -11,7 +11,6 @@ import jax.numpy as jnp
 
 from icp_proposal_tpu.mesh import TriangleMesh
 from icp_proposal_tpu.ops.closest_point import (
-    surface_distances_auto,
     closest_points_on_surface,
     nearest_vertex_of_faces,
     surface_distances,
@@ -20,7 +19,7 @@ from icp_proposal_tpu.ops.closest_point import (
 
 def directed_distances(points, target: TriangleMesh):
     """Point→surface distances [P] from points to the target mesh."""
-    d2, _ = surface_distances_auto(points, target.triangles())
+    d2, _ = surface_distances(points, target.triangles())
     return jnp.sqrt(d2)
 
 

@@ -1,41 +1,35 @@
 """Shortlist index for closest-point queries against a STATIC surface.
 
-TPU-native answer to scalismo's BVH-accelerated ``closestPointOnSurface``
-(reference call sites ``NonRigidIcpProposal.scala:97`` and
-``IndependentPointDistanceEvaluator.scala:43``): trees are pointer-chasing
-and data-dependent — hostile to the TPU's execution model — while the dense
-all-pairs kernel is exact but pays ~85 VPU flops for every (query, face)
-pair.  The index splits the query into
+Answer to scalismo's BVH-accelerated ``closestPointOnSurface`` (reference
+call sites ``NonRigidIcpProposal.scala:97`` and
+``IndependentPointDistanceEvaluator.scala:43``) without trees: the dense
+all-pairs query is exact but pays ~85 flops for every (query, face) pair.
+The index splits the query into
 
-  1. a *coarse* nearest-vertex pass (``coarse_nearest_pallas``: exact
-     subtractive VPU kernel; an MXU dot-product form exists but measured
-     slower at the required precision — see closest_point_pallas.py) over
-     the V target vertices, and
+  1. a *coarse* nearest-vertex pass (``closest_point.nearest_vertices``)
+     over the V target vertices, and
   2. an *exact* point→triangle cascade over a precomputed per-vertex
      shortlist ``cand[v] = the K faces nearest to vertex v`` (by exact
-     point-triangle distance, computed offline in numpy).
+     point-triangle distance, computed on the host): a Triton kernel on
+     CUDA devices (``ops/closest_point_triton.py``), its plain-XLA
+     reference ``refine_shortlist_xla`` elsewhere.
 
 Stage 2 is exact; the only approximation is the shortlist itself: the true
 closest face of a query q is found whenever it is among the K nearest faces
 of q's nearest vertex.  At the K=64 default this is exact for near-surface
-states and carries a measured ≤3.5% relative distance error for far
-random-init states (see ``validate_index`` docstring for the error model;
+queries and carries a bounded relative distance error for far random-init
+states (see ``validate_index`` docstring for the error model;
 ``tools/validate_index.py`` writes the K-sweep evidence to
 ``artifacts/index_validation.json``).  K is configurable per context
 (``build_target_context(index_k=...)``) and ``build_index=False`` selects
-the dense exact kernel.
+the dense exact query.
 
-Flop budget per chain at the flagship femur workload (400 queries, 1,622
-vertices, 3,240 faces, K=64): dense = 400·3240·85 ≈ 110 MF on the VPU;
-index = 400·1622·8 ≈ 5.2 MF VPU coarse + 400·64·85 ≈ 2.2 MF exact refine
-≈ 7.4 MF total — a ~15× flop reduction.  Measured wall-clock gain is ~2.7×
-(73.1 vs 194.6 ms per 100-step scan segment at 2,048 chains,
-``artifacts/PROFILE.md``): the shortlist path is memory-bound on the
-[B,P,K] gathers, not flop-bound.
+Flops per chain at the flagship femur workload (400 queries, 1,622
+vertices, 3,240 faces, K=64): dense = 400·3240·85 ≈ 110 MF; index =
+400·1622·8 ≈ 5.2 MF coarse + 400·64·85 ≈ 2.2 MF exact refine ≈ 7.4 MF.
 """
 from __future__ import annotations
 
-import os
 from typing import NamedTuple
 
 import jax
@@ -44,7 +38,10 @@ import numpy as np
 
 from icp_proposal_tpu.ops.closest_point import (
     closest_point_on_triangle,
+    closest_points_on_surface,
+    nearest_vertices,
     surface_distances,
+    triangle_dist2_components,
 )
 
 
@@ -53,10 +50,8 @@ class SurfaceIndex(NamedTuple):
 
     ``cand_tri`` holds the K candidate faces' corner coordinates pregathered
     per vertex in COMPONENT-MAJOR rows ([V, 9·K]: ax[K] ay[K] az[K] bx ...
-    cz[K]): one wide-row gather per query replaces K small [3,3] gathers —
-    HBM row gathers are DMA-efficient only with fat rows — and the layout
-    makes the refine kernel's nine component slices lane-contiguous
-    (``closest_point_pallas.refine_shortlist_pallas``)."""
+    cz[K]): one row per query replaces K small [3,3] gathers, and each of
+    the nine components of the K candidates is contiguous."""
 
     points: np.ndarray  # [V, 3]
     tri: np.ndarray  # [F, 3, 3]
@@ -133,9 +128,8 @@ def build_surface_index(points, cells, k: int = 32,
     """Build the shortlist index on host: O(V·F) exact distances + top-K.
 
     Uses the native OpenMP kernel (``icp_proposal_tpu/native``) when a C++
-    toolchain is available — ~1000× faster than the chunked-numpy fallback
-    at femur scale (ms vs ~30 s), which matters because every TPU target
-    context pays this build."""
+    toolchain is available, else chunked numpy; every target context pays
+    this build."""
     points = np.asarray(points, np.float32)
     cells = np.asarray(cells, np.int32)
     tri = points[cells]  # [F, 3, 3]
@@ -164,22 +158,31 @@ def build_surface_index(points, cells, k: int = 32,
     return SurfaceIndex(points=points, tri=tri, cand=cand, cand_tri=cand_tri)
 
 
-def shortlist_enabled() -> bool:
-    if os.environ.get("ICP_TPU_NO_SHORTLIST") == "1":
-        return False
-    from icp_proposal_tpu.ops.closest_point import pallas_enabled
+def refine_shortlist_xla(index: SurfaceIndex, queries, nv):
+    """Winner face id [P] among the K candidates of each query's nearest
+    vertex ``nv`` [P]: least exact distance, ties to the smallest face id
+    (the dense query's ``argmin`` order).  Plain XLA; the reference for the
+    Triton kernel."""
+    k = index.k
+    faces = jnp.asarray(index.cand)[nv]  # [P, K]
+    t = jnp.asarray(index.cand_tri).reshape(-1, 9, k)[nv]  # [P, 9, K]
+    comp = [t[..., i, :] for i in range(9)]  # [P, K] each
+    p = tuple(queries[..., i, None] for i in range(3))  # [P, 1]
+    d2 = triangle_dist2_components(p, comp[0:3], comp[3:6], comp[6:9])
+    best = jnp.min(d2, axis=-1, keepdims=True)
+    tied = jnp.where(d2 == best, faces, jnp.iinfo(jnp.int32).max)
+    return jnp.min(tied, axis=-1)
 
-    return pallas_enabled()
 
+def refine_shortlist(index: SurfaceIndex, queries, nv):
+    """``refine_shortlist_xla``'s contract: the Triton kernel on CUDA
+    devices, the XLA reference elsewhere.  No gradient."""
+    from icp_proposal_tpu.ops.closest_point_triton import refine_shortlist_triton
 
-def _coarse_ids(index: SurfaceIndex, queries):
-    from icp_proposal_tpu.ops.closest_point_pallas import coarse_nearest_pallas
-
-    # the nearest-vertex id is piecewise-constant in the query (zero gradient
-    # a.e.); stop_gradient keeps jax.grad through index_closest (MALA's
-    # target-density gradient) from demanding a JVP rule for the Pallas call
-    return coarse_nearest_pallas(
-        jax.lax.stop_gradient(queries), jnp.asarray(index.points)
+    return jax.lax.platform_dependent(
+        jax.lax.stop_gradient(queries), nv,
+        cuda=lambda q, n: refine_shortlist_triton(q, n, index.cand_tri, index.cand),
+        default=lambda q, n: refine_shortlist_xla(index, q, n),
     )
 
 
@@ -187,33 +190,24 @@ def index_closest(index: SurfaceIndex, queries):
     """(cp [P,3], d2 [P], face_idx [P]) — drop-in for
     ``closest_points_on_surface(queries, index.tri)``; vmap-safe.
 
-    One wide-row gather fetches each query's K pregathered candidate
-    triangles (component-major [P, 9·K] rows), the winner slot comes from
-    the VMEM-resident Pallas refine kernel (the jnp [P, K] cascade was the
-    measured hot spot of the whole MH step — XLA pushed its ~10 cascade
-    temporaries through HBM), and the winner's closest point/distance is
-    recomputed once in jnp — the only evaluation gradients flow through
-    (the winner id is piecewise-constant in the query, so stopping
-    gradients through the kernel is exact a.e.).
+    The coarse and refine stages only choose the winner face; its closest
+    point and distance are recomputed once here, the only evaluation
+    gradients flow through (the winner id is piecewise-constant in the
+    query, so stopping gradients through the choice is exact a.e.).
     """
-    from icp_proposal_tpu.ops.closest_point_pallas import refine_shortlist_pallas
-
-    nv = _coarse_ids(index, queries)  # [P]
-    faces = jnp.asarray(index.cand)[nv]  # [P, K]
-    trik = jnp.asarray(index.cand_tri)[nv]  # [P, 9K] component-major
-    fidx, wtri = refine_shortlist_pallas(
-        jax.lax.stop_gradient(queries), jax.lax.stop_gradient(trik), faces
-    )  # [P], [P, 9]
-    # elementwise winner recompute — no gathers, differentiable in queries
+    q_const = jax.lax.stop_gradient(queries)
+    nv = nearest_vertices(q_const, jnp.asarray(index.points))  # [P]
+    fidx = refine_shortlist(index, q_const, nv)
+    wtri = jnp.asarray(index.tri)[fidx]  # [P, 3, 3]
     cp, d2 = closest_point_on_triangle(
-        queries, wtri[:, 0:3], wtri[:, 3:6], wtri[:, 6:9]
+        queries, wtri[..., 0, :], wtri[..., 1, :], wtri[..., 2, :]
     )
     return cp, d2, fidx
 
 
 def index_distances(index: SurfaceIndex, queries):
     """(d2 [P], face_idx [P]) — drop-in for
-    ``surface_distances_auto(queries, index.tri)``; vmap-safe."""
+    ``surface_distances(queries, index.tri)``; vmap-safe."""
     _, d2, fidx = index_closest(index, queries)
     return d2, fidx
 
@@ -224,17 +218,13 @@ def closest_auto(queries, tri, index: SurfaceIndex | None):
     toggles between build and trace can't silently flip paths."""
     if index is not None:
         return index_closest(index, queries)
-    from icp_proposal_tpu.ops.closest_point import closest_points_on_surface
-
     return closest_points_on_surface(queries, tri)
 
 
 def distances_auto(queries, tri, index: SurfaceIndex | None):
     if index is not None:
         return index_distances(index, queries)
-    from icp_proposal_tpu.ops.closest_point import surface_distances_auto
-
-    return surface_distances_auto(queries, tri)
+    return surface_distances(queries, tri)
 
 
 def validate_index(index: SurfaceIndex, queries, atol: float = 1e-4,
@@ -244,18 +234,18 @@ def validate_index(index: SurfaceIndex, queries, atol: float = 1e-4,
     Returns (max_abs_err, frac_mismatched), or with ``with_rel=True``
     (max_abs_err, max_rel_err, frac_mismatched).
 
-    Error model (measured by tools/validate_index.py on the femur flagship,
-    13k adversarial queries → artifacts/index_validation.json): at the K=64
-    default the shortlist is EXACT (err = 0) for prior draws near the
-    surface — the regime that decides likelihoods and correspondences once a
-    chain has approached the target — while far queries (random-init states
-    with ±20–50 mm pose offsets) can miss the true face with ≤0.4 mm /
-    ≤3.5% relative distance error on ≤0.2% of queries.  Such states sit
-    hundreds of σ deep in the Gaussian likelihood tail (σ=2 mm, 200 eval
-    points), where a few-nat perturbation is invisible next to the ~10³-nat
-    posterior gradient the chain is climbing, and the error vanishes as the
-    chain approaches the surface — so the stationary distribution is
-    unaffected at measurement precision (artifacts/posterior_parity.json)."""
+    Error model (measured by tools/validate_index.py on the seeded femur
+    GPMM-100 workload → artifacts/index_validation.json): at the K=64
+    default the shortlist is exact (no query off by more than 1e-4 mm) for
+    queries within the likelihood's σ = 2 mm of the target — the regime
+    that decides likelihoods and correspondences once a chain has
+    approached the target — while queries from prior draws and random-init
+    poses (up to tens of mm from the surface; 4 × 77,856 queries) miss the
+    true face on ≤0.14% of queries, 99.9% stay within 0.08 mm, and the
+    worst is off by 1.5 mm / 14% of its distance.  Such states sit deep in
+    the Gaussian likelihood tail (σ = 2 mm, 200+ eval points), where the
+    perturbation is small next to the posterior gradient the chain is
+    climbing, and the error vanishes as the chain approaches the surface."""
     d2_fast, _ = index_distances(index, jnp.asarray(queries, jnp.float32))
     d2_ref, _ = surface_distances(
         jnp.asarray(queries, jnp.float32), jnp.asarray(index.tri)

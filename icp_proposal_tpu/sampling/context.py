@@ -18,19 +18,18 @@ class TargetContext(NamedTuple):
     tri: jax.Array  # [Ft, 3, 3]
     boundary: jax.Array  # [Vt] bool
     # shortlist index for closest-point queries (ops/surface_index.py);
-    # None → dense streaming kernel
+    # None → dense exact query
     index: object = None
 
 
 def build_target_context(target: TriangleMesh, boundary_mask=None,
                          morton_faces: bool = True,
                          index_k: int = 64,
-                         build_index: bool | None = None) -> TargetContext:
-    """build_index: True/False forces the shortlist index on/off; None
-    (default) builds it iff the fast path is usable (TPU backends,
-    ``shortlist_enabled()``).  Downstream dispatch (``closest_auto``/
-    ``distances_auto``) depends ONLY on index presence, so the decision is
-    made once, here — env toggles after construction have no effect."""
+                         build_index: bool = True) -> TargetContext:
+    """build_index: build the K-shortlist index (``ops/surface_index.py``);
+    False selects the dense exact query.  Downstream dispatch
+    (``closest_auto``/``distances_auto``) depends only on what is built
+    here, so the closest-point path is chosen once, at construction."""
     if boundary_mask is None:
         boundary_mask = boundary_vertex_mask(
             np.asarray(target.cells), target.num_points
@@ -40,19 +39,14 @@ def build_target_context(target: TriangleMesh, boundary_mask=None,
     if morton_faces:
         from icp_proposal_tpu.ops.morton import morton_sort_faces
 
-        # face order is semantically irrelevant; Morton order makes the
-        # Pallas kernel's AABB tile culling effective
+        # face order is semantically irrelevant; Morton order keeps
+        # spatially near faces adjacent
         cells = cells[morton_sort_faces(points, cells)]
-    # shortlist index: only built when the fast path can actually be used
-    # (TPU backends); tests on CPU skip the O(V·F) host build
-    from icp_proposal_tpu.ops.surface_index import (
-        build_surface_index,
-        shortlist_enabled,
-    )
+    from icp_proposal_tpu.ops.surface_index import build_surface_index
 
-    if build_index is None:
-        build_index = shortlist_enabled()
-    index = build_surface_index(points, cells, k=index_k) if build_index else None
+    index = (
+        build_surface_index(points, cells, k=index_k) if build_index else None
+    )
     # host-side numpy: baked as jit constants, no eager device dispatches
     return TargetContext(
         points=points,

@@ -26,7 +26,6 @@ import numpy as np
 from icp_proposal_tpu.mesh import TriangleMesh
 from icp_proposal_tpu.models import gpmm as gp
 from icp_proposal_tpu.ops.closest_point import (
-    surface_distances_auto,
     closest_points_on_surface,
     nearest_vertex_of_faces,
     surface_distances,
@@ -183,7 +182,7 @@ class EvaluatorProgram:
         if spec.mode in ("target_to_model", "symmetric"):
             tq = self.ctx.points[self._target_ids[spec.name]]
             tri_cur = points[self.gpmm.cells]
-            d2, _ = surface_distances_auto(tq, tri_cur)
+            d2, _ = surface_distances(tq, tri_cur)
             terms.append(("t2m", jnp.sum(gaussian_logpdf(jnp.sqrt(d2), 0.0, spec.sigma))))
         if spec.mode == "symmetric":
             return 0.5 * terms[0][1] + 0.5 * terms[1][1]
@@ -211,8 +210,8 @@ class EvaluatorProgram:
         # far-regime misses).  The reference's BVH queries are exact
         # (``HausdorffDistanceEvaluator.scala:33-34``).
         tri_cur = points[self.gpmm.cells]
-        d2_m2t, _ = surface_distances_auto(points, self.ctx.tri)
-        d2_t2m, _ = surface_distances_auto(self.ctx.points, tri_cur)
+        d2_m2t, _ = surface_distances(points, self.ctx.tri)
+        d2_t2m, _ = surface_distances(self.ctx.points, tri_cur)
         hd = jnp.sqrt(jnp.maximum(jnp.max(d2_m2t), jnp.max(d2_t2m)))
         return exponential_logpdf(hd, spec.rate)
 

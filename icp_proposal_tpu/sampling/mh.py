@@ -1,6 +1,6 @@
 """The Metropolis–Hastings engine.
 
-TPU-native replacement for scalismo's ``MetropolisHastings`` +
+Replacement for scalismo's ``MetropolisHastings`` +
 ``SamplingRegistration`` driver loop (reference
 ``api/sampling/SamplingRegistration.scala:37-94``; L2 hot loop mapped in
 SURVEY §3.1): one jit-compiled step as a pure function
@@ -31,14 +31,19 @@ from icp_proposal_tpu.sampling.evaluators import (
 from icp_proposal_tpu.sampling.proposals import IcpComponent, MixtureProgram
 from icp_proposal_tpu.sampling.state import FitState, transformed_points
 
+# Matmul precision of the MH step and its initial carry.  The posterior
+# assembly feeds a Cholesky and the exact transition density, the decode and
+# projection feed every likelihood: full float32, never TF32.
+MATMUL_PRECISION = "highest"
+
 
 class _FusionPlan(NamedTuple):
     """Static plan for the fused target-surface query pass.
 
-    The hottest per-step HBM work is the closest-point queries against the
+    The largest per-step work is the closest-point queries against the
     (static) target surface: the model-direction ICP correspondence
     (2·rank queries at the candidate anchor) and the Euclidean evaluator
-    (4·rank queries at the same candidate) — see artifacts/PROFILE.md.
+    (4·rank queries at the same candidate).
     When the ICP ids are a SUBSET of the evaluator ids (the fused setups
     arrange this; any seeded subset is an equally valid configuration,
     SURVEY §7 quirk (a)), ONE ``closest_auto`` pass serves both: the
@@ -139,7 +144,7 @@ def make_mh_step(gpmm, mixture: MixtureProgram, evaluator: EvaluatorProgram,
     plan = _fusion_plan(mixture, evaluator) if fuse else None
     needs_normals = mixture.needs_normals()
     # static vertex→face adjacency: turns per-step normal accumulation into
-    # gathers (scatter-adds serialize on TPU)
+    # gathers instead of scatter-adds
     adjacency = (
         np.asarray(vertex_face_adjacency(gpmm.cells, gpmm.num_points))
         if needs_normals
@@ -152,6 +157,10 @@ def make_mh_step(gpmm, mixture: MixtureProgram, evaluator: EvaluatorProgram,
     icp_idx = sorted(mixture.icp_components)
 
     def step(carry: MhCarry, key) -> tuple[MhCarry, ChainRecord]:
+        with jax.default_matmul_precision(MATMUL_PRECISION):
+            return _step(carry, key)
+
+    def _step(carry: MhCarry, key) -> tuple[MhCarry, ChainRecord]:
         state = carry.state
         k_prop, k_sel, k_acc = jax.random.split(key, 3)
 
@@ -254,6 +263,11 @@ def init_carry(gpmm, evaluator: EvaluatorProgram, state: FitState,
                mixture: Optional[MixtureProgram] = None) -> MhCarry:
     """Build the initial carry: evaluator values + (if the mixture has ICP
     components) the GP-posterior factors anchored at the initial state."""
+    with jax.default_matmul_precision(MATMUL_PRECISION):
+        return _init_carry(gpmm, evaluator, state, mixture)
+
+
+def _init_carry(gpmm, evaluator, state, mixture):
     pts = transformed_points(gpmm, state)
     log_post, named = evaluator(state, pts)
     factors = ()
@@ -291,7 +305,7 @@ def run_chains(step, carries: MhCarry, keys, n_steps: int):
     """vmap over a batch of chains (leading axis of carries/keys).
 
     This is the reference's only parallelism (``.par`` multi-chain loops,
-    ``RunMHRandomInitComparison.scala:66-86``) mapped to the TPU batch
+    ``RunMHRandomInitComparison.scala:66-86``) mapped to a batch
     dimension.  The jitted runner is cached per (step, n_steps) so segmented
     drivers don't re-trace/re-compile every segment.
     """

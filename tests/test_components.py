@@ -112,6 +112,7 @@ def test_ply_roundtrip(tmp_path):
 def test_femur_builder_statistics():
     """Build a small femur-kernel model on a decimated femur mesh; variance
     must be positive/descending and capture a sensible fraction."""
+    from icp_proposal_tpu.apps.femur import FEMUR_MESH
     from icp_proposal_tpu.io.stl import read_stl
     from icp_proposal_tpu.models.build_femur import (
         build_femur_gpmm,
@@ -120,7 +121,7 @@ def test_femur_builder_statistics():
     )
     from icp_proposal_tpu.ops.decimate import decimate
 
-    points, cells = read_stl("/root/reference/data/femur/femur_reference.stl")
+    points, cells = read_stl(FEMUR_MESH)
     pts, cls, _ = decimate(points, cells, 400)
     model = build_femur_gpmm(pts, cls, num_components=20)
     var = np.asarray(model.variance)
@@ -448,8 +449,8 @@ def test_hausdorff_evaluator_exact_at_far_states(femur_data):
     from icp_proposal_tpu.sampling.state import init_state, transformed_points
 
     model = femur_data.model
-    # force the shortlist index on (normally TPU-only) — the evaluator must
-    # ignore it for the max statistic
+    # the context carries the shortlist index — the evaluator must ignore
+    # it for the max statistic
     ctx = build_target_context(
         femur_data.target, femur_data.target_boundary_mask, build_index=True
     )
@@ -481,10 +482,13 @@ def test_independent_evaluator_shortlist_perturbation_bounded(femur_data):
     (coeffs ~ N(0, 0.1·I), the femur experiments' init distribution) and
     adversarially far states (3σ coeffs + a 79 mm translation).
 
-    Measured 2026-08-20 (femur GPMM-50, σ=2.0, 4·rank=204 points): max
-    |ΔlogL| = 1.2e-4 nats over 64 random inits, 7.8e-3 nats over 16 far
-    states, 0.0 at the zero state — on logL ≈ −777.  The asserted bounds
-    carry ~6× margin.  The reference's queries are exact
+    Measured on the seeded femur workload (GPMM-50, σ=2.0, 4·rank=204
+    points): max |ΔlogL| = 6.1e-5 nats over 64 random inits (logL ≈ −750),
+    0.0 over 16 far states, 0.0 at the zero state.  The init bound carries
+    ~8× margin over that measurement; the far bound is kept from the
+    reference-data measurement (7.8e-3 nats there), since the documented
+    error model allows far-query misses of up to 1.5 mm
+    (``surface_index.validate_index``).  The reference's queries are exact
     (``IndependentPointDistanceEvaluator.scala:43,51``); ours are exact in
     the near-surface regime and perturbed below MH-decision noise
     elsewhere, so the sampled posterior is the exact one to within these
@@ -534,6 +538,6 @@ def test_independent_evaluator_shortlist_perturbation_bounded(femur_data):
         )))
         for i in range(8)
     ]
-    assert max(init_errs) < 5e-3, f"init-state |dlogL| {max(init_errs)}"
+    assert max(init_errs) < 5e-4, f"init-state |dlogL| {max(init_errs)}"
     assert max(far_errs) < 5e-2, f"far-state |dlogL| {max(far_errs)}"
     assert float(delta(base)) < 1e-4

@@ -11,6 +11,7 @@ from icp_proposal_tpu.mesh import TriangleMesh, boundary_vertex_mask
 from icp_proposal_tpu.models import gpmm as gp
 from icp_proposal_tpu.models.synthetic import make_icosphere, make_synthetic_gpmm
 
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def test_runconfig_roundtrip_and_build():
     from icp_proposal_tpu.utils.config import RunConfig, build_from_config
@@ -84,10 +85,10 @@ def test_pod_chains_cli_tiny():
     out = subprocess.run(
         [sys.executable, "-c",
          "import jax; jax.config.update('jax_platforms','cpu');"
-         "import sys; sys.argv=['pod_chains','--chains','8','--steps','30','--components','50'];"
+         "import sys; sys.argv=['pod_chains','--chains','8','--steps','30','--components','50','--cpu'];"
          "from icp_proposal_tpu.apps.pod_chains import main; main()"],
         capture_output=True, text=True, timeout=500, env=env,
-        cwd="/root/repo",
+        cwd=REPO,
     )
     assert out.returncode == 0, out.stderr[-2000:]
     last = out.stdout.strip().splitlines()[-1]
@@ -98,7 +99,7 @@ def test_pod_chains_cli_tiny():
     assert np.isfinite(stats["rhat_max_first8"])
 
 
-def test_reference_baseline_port_runs():
+def test_reference_baseline_port_runs(tmp_path):
     """The measured single-core CPU baseline port executes and reports a
     plausible rate (it anchors bench.py's vs_baseline)."""
     env = dict(os.environ)
@@ -106,12 +107,54 @@ def test_reference_baseline_port_runs():
     out = subprocess.run(
         [sys.executable, "tools/reference_baseline_port.py",
          "--components", "50", "--steps", "20",
-         "--out", "/tmp/cpu_baseline_test.json"],
+         "--out", str(tmp_path / "cpu_baseline_test.json")],
         capture_output=True, text=True, timeout=500, env=env,
-        cwd="/root/repo",
+        cwd=REPO,
     )
     assert out.returncode == 0, out.stderr[-2000:]
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res["value"] > 1.0  # sane single-core rate
     assert 0.0 <= res["acceptance"] <= 1.0
     assert res["threads"]["OMP_NUM_THREADS"] == "1"
+
+
+def test_compilation_cache_dir(monkeypatch, tmp_path):
+    """``JAX_COMPILATION_CACHE_DIR`` wins; otherwise ``.jax_cache`` at the
+    checkout root, resolved from the package's location."""
+    import jax
+
+    from icp_proposal_tpu.utils.profiling import enable_compilation_cache
+
+    before = jax.config.jax_compilation_cache_dir
+    try:
+        monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path / "c"))
+        assert enable_compilation_cache() == str(tmp_path / "c")
+        assert jax.config.jax_compilation_cache_dir == str(tmp_path / "c")
+        monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR")
+        assert enable_compilation_cache() == os.path.join(REPO, ".jax_cache")
+    finally:
+        jax.config.update("jax_compilation_cache_dir", before)
+
+
+def test_pallas_imports_triton_only():
+    """The package reaches Pallas only through its Triton (GPU) route: no
+    module imports another Pallas backend."""
+    import ast
+    import pathlib
+
+    pallas = "jax.experimental.pallas"
+    offenders = []
+    for path in (pathlib.Path(REPO) / "icp_proposal_tpu").rglob("*.py"):
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.ImportFrom) and node.module == pallas:
+                mods = [f"{pallas}.{a.name}" for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                mods = [node.module or ""]
+            elif isinstance(node, ast.Import):
+                mods = [a.name for a in node.names]
+            else:
+                continue
+            offenders += [(str(path.relative_to(REPO)), m) for m in mods
+                          if m.startswith(pallas + ".")
+                          and m != pallas + ".triton"]
+    assert not offenders, offenders

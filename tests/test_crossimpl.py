@@ -6,7 +6,7 @@ framework's parity-mode MH chain must sample the same posterior when
 configured for the identical density.  A bug shared by the JAX
 correspondence kernels, factor assembly, or transition densities would show
 up here as a moment mismatch.  (The full femur study is
-``tools/crossimpl_parity.py`` → ``artifacts/posterior_parity_crossimpl.json``.)
+``tools/crossimpl_parity.py``.)
 """
 import os
 import sys

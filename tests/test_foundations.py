@@ -13,19 +13,67 @@ from icp_proposal_tpu.ops import metrics, rigid
 # ---------------------------------------------------------------------- IO
 
 def test_read_femur_stl():
+    from icp_proposal_tpu.apps.femur import FEMUR_MESH
     from icp_proposal_tpu.io.stl import read_stl
 
-    points, cells = read_stl("/root/reference/data/femur/femur_reference.stl")
+    points, cells = read_stl(FEMUR_MESH)
     # SURVEY §2.5: 1,622 vertices / 3,240 triangles
     assert points.shape == (1622, 3)
     assert cells.shape == (3240, 3)
     assert cells.min() == 0 and cells.max() == 1621
 
 
+def test_seeded_femur_workload_deterministic(femur_data):
+    """The seeded workload has the reference femur's sizes and is the same
+    on every build with the same seed; another seed gives another target."""
+    from icp_proposal_tpu.apps.femur import FEMUR_LANDMARK_IDS, make_femur_data
+
+    assert femur_data.model.rank == 51
+    assert np.asarray(femur_data.target.points).shape == (1622, 3)
+    assert np.asarray(femur_data.target.cells).shape == (3240, 3)
+    assert np.asarray(femur_data.model.cells).shape == (3240, 3)
+    assert len(femur_data.model_landmarks) == len(FEMUR_LANDMARK_IDS)
+    assert not femur_data.target_boundary_mask.any()  # closed surface
+    again = make_femur_data(50)
+    np.testing.assert_array_equal(np.asarray(again.target.points),
+                                  np.asarray(femur_data.target.points))
+    np.testing.assert_array_equal(np.asarray(again.model.basis),
+                                  np.asarray(femur_data.model.basis))
+    other = make_femur_data(50, seed=7)
+    assert not np.allclose(np.asarray(other.target.points),
+                           np.asarray(femur_data.target.points))
+    # landmark alignment undoes most of the seeded rigid motion
+    d = np.linalg.norm(np.asarray(femur_data.target.points)
+                       - np.asarray(femur_data.model.ref_points), axis=1)
+    assert d.mean() < 20.0
+
+
+def test_femur_data_dir_loader(femur_data, tmp_path):
+    """A directory in the reference's layout still loads when passed
+    explicitly (statismo model, target STL, landmark JSONs)."""
+    from icp_proposal_tpu.apps.femur import load_femur_data
+    from icp_proposal_tpu.io.landmarks import write_landmarks
+    from icp_proposal_tpu.io.statismo import write_statismo_gpmm
+    from icp_proposal_tpu.io.stl import write_stl
+
+    write_statismo_gpmm(tmp_path / "femur_gp_model_50-components.h5", femur_data.model)
+    write_stl(tmp_path / "femur_target.stl", np.asarray(femur_data.target.points),
+              np.asarray(femur_data.target.cells))
+    write_landmarks(tmp_path / "femur_reference.json", femur_data.model_landmarks)
+    write_landmarks(tmp_path / "femur_target.json", femur_data.target_landmarks)
+    data = load_femur_data(50, data_dir=str(tmp_path))
+    assert data.model.rank == 51
+    # already aligned, so the landmark alignment is (close to) the identity
+    np.testing.assert_allclose(
+        np.sort(np.asarray(data.target.points).ravel()),
+        np.sort(np.asarray(femur_data.target.points).ravel()), atol=1e-3)
+
+
 def test_stl_roundtrip(tmp_path):
+    from icp_proposal_tpu.apps.femur import FEMUR_MESH
     from icp_proposal_tpu.io.stl import read_stl, write_stl
 
-    points, cells = read_stl("/root/reference/data/femur/femur_reference.stl")
+    points, cells = read_stl(FEMUR_MESH)
     write_stl(tmp_path / "out.stl", points, cells)
     p2, c2 = read_stl(tmp_path / "out.stl")
     assert p2.shape == points.shape
@@ -35,11 +83,14 @@ def test_stl_roundtrip(tmp_path):
     )
 
 
-def test_statismo_reader_matches_reference_mesh(femur_model50):
+def test_statismo_reader_matches_reference_mesh(femur_model50, tmp_path):
+    from icp_proposal_tpu.apps.femur import FEMUR_MESH
+    from icp_proposal_tpu.io.statismo import read_statismo_gpmm, write_statismo_gpmm
     from icp_proposal_tpu.io.stl import read_stl
 
-    points, cells = read_stl("/root/reference/data/femur/femur_reference.stl")
-    model = femur_model50
+    points, cells = read_stl(FEMUR_MESH)
+    write_statismo_gpmm(tmp_path / "femur_gp_model_50-components.h5", femur_model50)
+    model = read_statismo_gpmm(tmp_path / "femur_gp_model_50-components.h5")
     assert model.rank == 51  # 50-component file actually stores 51 columns
     # the representer points should be the same physical surface as the STL
     # (possibly different vertex order) — compare sorted coordinate sets
@@ -63,11 +114,17 @@ def test_statismo_roundtrip(tmp_path, femur_model50):
     )
 
 
-def test_landmarks_and_alignment():
-    from icp_proposal_tpu.io.landmarks import common_landmarks, read_landmarks
+def test_landmarks_and_alignment(femur_data, tmp_path):
+    from icp_proposal_tpu.io.landmarks import (
+        common_landmarks,
+        read_landmarks,
+        write_landmarks,
+    )
 
-    a = read_landmarks("/root/reference/data/femur/femur_reference.json")
-    b = read_landmarks("/root/reference/data/femur/femur_target.json")
+    write_landmarks(tmp_path / "reference.json", femur_data.model_landmarks)
+    write_landmarks(tmp_path / "target.json", femur_data.target_landmarks)
+    a = read_landmarks(tmp_path / "reference.json")
+    b = read_landmarks(tmp_path / "target.json")
     pa, pb, names = common_landmarks(a, b)
     assert len(names) == 6
 

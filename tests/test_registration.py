@@ -1,5 +1,7 @@
-"""End-to-end registration tests on the real femur assets + sharded runner,
+"""End-to-end registration tests on the seeded femur workload + sharded runner,
 loggers, and diagnostics."""
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -139,7 +141,7 @@ def test_sharded_runner_multichip():
 def test_graft_entry_compiles():
     import sys
 
-    sys.path.insert(0, "/root/repo")
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     import __graft_entry__ as ge
 
     fn, args = ge.entry()

@@ -5,14 +5,14 @@ BASELINE.md's correctness north star needs committed evidence that the
 sampler *converges on the real workload* — not just on the synthetic
 icosphere of ``test_pooled_diagnostics_read_converged_at_convergence``.
 Reference analog: the 100k-sample femur chain of
-``/root/reference/README.md:35`` (the replay artifact the reference ships).
+the reference's ``README.md:35`` (the replay artifact the reference ships).
 
 Protocol (VERDICT r4 item 8):
   * 64 chains (8 per device on a virtual 8-device CPU mesh), femur GPMM,
     OVERDISPERSED inits — per-chain coefficient draws from the N(0, I)
     model prior, so split-R̂ starts far above 1 and genuinely has to fall.
   * The recommended exact-mode configuration (``--setup``; default is the
-    argmax of ``ess_per_wall_second`` in artifacts/quality_femur.json).
+    recommended setup, ``apps.femur.RECOMMENDED_SETUP``).
   * Rounds of ``--round-steps`` steps through
     ``parallel.runner.run_sharded_chains`` — the SAME psum-collectives
     pooling path a real pod slice would use (8 devices ⇒ no single-device

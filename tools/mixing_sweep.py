@@ -73,7 +73,7 @@ def run_config(data, label, n_chains, n_steps, **kw):
     import jax
     import jax.numpy as jnp
 
-    from icp_proposal_tpu.ops.closest_point import surface_distances_auto
+    from icp_proposal_tpu.ops.closest_point import surface_distances
     from icp_proposal_tpu.sampling import mh
     from icp_proposal_tpu.sampling.diagnostics import ess
     from icp_proposal_tpu.sampling.state import init_state, transformed_points
@@ -122,7 +122,7 @@ def run_config(data, label, n_chains, n_steps, **kw):
         pts = jax.vmap(lambda s: transformed_points(data.model, s))(st)
 
         def one(p):
-            d2, _ = surface_distances_auto(p, jnp.asarray(ctx.tri))
+            d2, _ = surface_distances(p, jnp.asarray(ctx.tri))
             return jnp.mean(jnp.sqrt(d2))
 
         return jax.vmap(one)(pts)

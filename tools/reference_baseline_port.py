@@ -14,7 +14,7 @@ Two jobs:
 2. **Cross-implementation posterior parity** (``PortSampler``): run the
    port as a *sampler* (VERDICT r2 item 2) with geometry (point subsets,
    noise frames, densities) matched to the JAX framework's parity mode, so
-   its long-chain posterior moments provide an INDEPENDENT check of the TPU
+   its long-chain posterior moments provide an INDEPENDENT check of the JAX
    sampler — scipy KD-tree + numpy vs our JAX/Pallas kernels share no code.
 
 Faithfulness notes (everything is tilted IN THE REFERENCE'S FAVOR, so the
